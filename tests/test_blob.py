@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from visfd_tpu.io import read_mrc
-from visfd_tpu.features import blob as B
+from visfd_jax.io import read_mrc
+from visfd_jax.features import blob as B
 
 
 def diameter_ladder(d_min, d_max, growth_ratio):

@@ -10,9 +10,9 @@ import sys
 import numpy as np
 import pytest
 
-from visfd_tpu.cli import filter_mrc as FM
-from visfd_tpu.cli import sum_voxels as SV
-from visfd_tpu.io import mrc
+from visfd_jax.cli import filter_mrc as FM
+from visfd_jax.cli import sum_voxels as SV
+from visfd_jax.io import mrc
 
 
 @pytest.fixture()
@@ -207,56 +207,6 @@ def test_membrane_pipeline(workdir):
     assert os.path.getsize("memb.ply") > 0
 
 
-def test_membrane_pipeline_fused_parity(workdir, monkeypatch):
-    """The fused Pallas eigen/TV pipeline (VISFD_FUSED_EIGEN=1, which
-    runs the kernels in interpret mode on CPU) reproduces the XLA
-    flagship -membrane -tv -connect output."""
-    args = ("-w 19.2 -in test_image_membrane.rec -out {out}"
-            " -membrane minima 55 -tv 4 -tv-angle-exponent 4 -bin 2"
-            " -connect 1e+09 -connect-angle 30")
-    monkeypatch.setenv("VISFD_FUSED_EIGEN", "0")
-    log_ref = run_fm(args.format(out="memb_ref.rec"), capture=True)
-    monkeypatch.setenv("VISFD_FUSED_EIGEN", "1")
-    log_fus = run_fm(args.format(out="memb_fused.rec"), capture=True)
-    assert "falling back" not in log_fus
-
-    def n_clusters(log):
-        return int([ln for ln in log.splitlines()
-                    if "Number of clusters found:" in ln][0].split()[-1])
-
-    assert n_clusters(log_fus) == n_clusters(log_ref)
-    a = mrc.read_mrc("memb_ref.rec").data
-    b = mrc.read_mrc("memb_fused.rec").data
-    # label maps may differ only where float rounding flips a
-    # threshold comparison; demand near-total agreement
-    agree = np.mean(a == b)
-    assert agree > 0.999, f"label agreement {agree}"
-
-
-def test_membrane_pipeline_fused_mesh_parity(workdir, monkeypatch):
-    """Fused per-shard kernels under -mesh 8 (hessian_principal_sharded
-    + channel-major sharded TV + sym3_score_sharded, interpret mode on
-    the forced CPU mesh) reproduce the XLA flagship output."""
-    args = ("-w 19.2 -in test_image_membrane.rec -out {out}"
-            " -membrane minima 55 -tv 4 -tv-angle-exponent 4 -bin 2"
-            " -mesh 8 -connect 1e+09 -connect-angle 30")
-    monkeypatch.setenv("VISFD_FUSED_EIGEN", "0")
-    log_ref = run_fm(args.format(out="mm_ref.rec"), capture=True)
-    monkeypatch.setenv("VISFD_FUSED_EIGEN", "1")
-    log_fus = run_fm(args.format(out="mm_fused.rec"), capture=True)
-    assert "falling back" not in log_fus
-
-    def n_clusters(log):
-        return int([ln for ln in log.splitlines()
-                    if "Number of clusters found:" in ln][0].split()[-1])
-
-    assert n_clusters(log_fus) == n_clusters(log_ref)
-    a = mrc.read_mrc("mm_ref.rec").data
-    b = mrc.read_mrc("mm_fused.rec").data
-    agree = np.mean(a == b)
-    assert agree > 0.999, f"label agreement {agree}"
-
-
 def test_edge_cli_brute_oracle(tmp_path, monkeypatch):
     """Brute-force oracle for the -edge (gradient magnitude) CLI path,
     which the reference binary refuses to run (settings.cpp:2754-2770;
@@ -264,7 +214,7 @@ def test_edge_cli_brute_oracle(tmp_path, monkeypatch):
     full-volume edge normalization) -> central-difference gradient with
     nearest-interior face clamping -> * sigma -> Euclidean norm."""
     from tests.test_filters import brute_sep3
-    from visfd_tpu.ops import kernels as K
+    from visfd_jax.ops import kernels as K
 
     monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(5)
@@ -289,3 +239,23 @@ def test_edge_cli_brute_oracle(tmp_path, monkeypatch):
                mode="edge") * sigma
     expect = np.sqrt((g * g).sum(-1))
     np.testing.assert_allclose(got, expect, atol=5e-6 * expect.max())
+
+
+def test_phase_checkpoint_npy_roundtrip(tmp_path, monkeypatch):
+    """-save-progress-sharded / -load-progress-sharded (numpy phase
+    checkpoint) resume phase 2 exactly like the reference's .rec
+    -save-progress / -load-progress pair, on a seeded phantom."""
+    from visfd_jax.utils.phantom import membrane_phantom
+    monkeypatch.chdir(tmp_path)
+    mrc.write_mrc("in.mrc", np.asarray(membrane_phantom((24, 40, 32))))
+    base = ("-w 19.2 -in in.mrc -membrane minima 55 -tv 1.5 "
+            "-tv-angle-exponent 4 ")
+    run_fm(base + "-out p1.mrc -save-progress prog "
+           "-save-progress-sharded ckpt")
+    assert sorted(os.listdir("ckpt")) == ["direction.npy", "saliency.npy",
+                                          "vote.npy"]
+    tail = " -connect 3e-4 -connect-angle 30"
+    run_fm(base + "-out rec.mrc -load-progress prog" + tail)
+    run_fm(base + "-out npy.mrc -load-progress-sharded ckpt" + tail)
+    np.testing.assert_array_equal(mrc.read_mrc("npy.mrc").data,
+                                  mrc.read_mrc("rec.mrc").data)

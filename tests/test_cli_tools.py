@@ -7,15 +7,15 @@ import os
 import numpy as np
 import pytest
 
-from visfd_tpu.cli import combine_mrc as CM
-from visfd_tpu.cli import crop_mrc as CR
-from visfd_tpu.cli import convert_to_float as CF
-from visfd_tpu.cli import pval_mrc as PV
-from visfd_tpu.cli import histogram_mrc as HG
-from visfd_tpu.cli import draw_filter_1d as DF
-from visfd_tpu.cli import voxelize_mesh as VM
-from visfd_tpu.io import mrc
-from visfd_tpu.io.pointcloud import write_oriented_pointcloud_ply
+from visfd_jax.cli import combine_mrc as CM
+from visfd_jax.cli import crop_mrc as CR
+from visfd_jax.cli import convert_to_float as CF
+from visfd_jax.cli import pval_mrc as PV
+from visfd_jax.cli import histogram_mrc as HG
+from visfd_jax.cli import draw_filter_1d as DF
+from visfd_jax.cli import voxelize_mesh as VM
+from visfd_jax.io import mrc
+from visfd_jax.io.pointcloud import write_oriented_pointcloud_ply
 
 
 def _write_vol(path, data, w=1.0):
@@ -172,7 +172,7 @@ FIXREC = pathlib.Path("/root/reference/tests/test_blob_detect.rec")
 @pytest.mark.parametrize("op,name", [("+", "add"), ("*", "mul")])
 def test_combine_mrc_golden(tmp_path, op, name):
     # combine_mrc ref_gauss.mrc OP FIX ref_combine_NAME.mrc
-    from visfd_tpu.cli import combine_mrc as CM
+    from visfd_jax.cli import combine_mrc as CM
     out = tmp_path / "out.mrc"
     assert CM.run([str(GOLDEN / "ref_gauss.mrc"), op, str(FIXREC),
                    str(out)]) == 0
@@ -187,7 +187,7 @@ def test_combine_mrc_golden(tmp_path, op, name):
     (["-ave"], "ref_sum_ave.txt"),  # sum_voxels -ave FIX
 ])
 def test_sum_voxels_golden(capsys, args, golden):
-    from visfd_tpu.cli import sum_voxels as SV
+    from visfd_jax.cli import sum_voxels as SV
     assert SV.run(args + [str(FIXREC)]) == 0
     got = capsys.readouterr().out.strip().splitlines()[-1]
     want = (GOLDEN / golden).read_text().strip()
@@ -199,7 +199,7 @@ def test_pval_mrc_golden(capsys):
     # pval_mrc -in FIX -w 1 -crds ref_keep.txt -gauss 3 -max
     # (ref_keep.txt is a 5-column blob list: exercises the reference's
     # raw-triple-stream coordinate reading, replicated exactly)
-    from visfd_tpu.cli import pval_mrc as PV
+    from visfd_jax.cli import pval_mrc as PV
     assert PV.run(["-in", str(FIXREC), "-w", "1",
                    "-crds", str(GOLDEN / "ref_keep.txt"),
                    "-gauss", "3", "-max"]) == 0

@@ -2,15 +2,17 @@
 (tests/test_watershed.sh + test_membrane_detection.sh analogues)."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
-from visfd_tpu.ops.filters import apply_gauss
-from visfd_tpu.segment.connect import (
+from visfd_jax.ops.filters import apply_gauss
+from visfd_jax.segment import connect as C
+from visfd_jax.segment.connect import (
     label_connected, trace_product_sym3_quirk, SORT_BY_SIZE)
-from visfd_tpu.features import hessian as FH
-from visfd_tpu.features import tv as TV
-from visfd_tpu.linalg import sym3
+from visfd_jax.features import hessian as FH
+from visfd_jax.features import tv as TV
+from visfd_jax.linalg import sym3
 
 
 def test_two_uniform_spheres_two_clusters():
@@ -132,3 +134,21 @@ def test_connect_no_seeds_with_vector_standardization(rng):
         start_from_saliency_maxima=True)
     assert res.num_clusters == 0
     assert np.all(res.labels == -1)
+
+
+@pytest.mark.parametrize("nz", [33, 34, 40])
+def test_discard_gates_by_slabs_equal_whole(rng, monkeypatch, nz):
+    """The per-voxel gates computed over z-slabs with a one-plane halo
+    equal the whole-volume computation, including slabs at the faces
+    (edge clamp) and a short last slab."""
+    monkeypatch.setattr(C, "_GATE_SLAB", 16)
+    sal = jnp.asarray(rng.normal(size=(nz, 12, 10)).astype(np.float32))
+    t = jnp.asarray(rng.normal(size=(nz, 12, 10, 6)).astype(np.float32))
+    v = jnp.asarray(rng.normal(size=(nz, 12, 10, 3)).astype(np.float32))
+    args = (jnp.float32(0.3), jnp.float32(0.2), jnp.float32(0.04))
+    kw = dict(order=sym3.EigenOrder.DECREASING, consider_sign=False,
+              neg_hess=True, has_tensor=True, has_vector=True)
+    whole = C._discard_gates_device(sal, t, v, *args, **kw)
+    np.testing.assert_array_equal(
+        np.asarray(C._discard_gates(sal, t, v, *args, **kw)),
+        np.asarray(whole))

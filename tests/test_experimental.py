@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from visfd_tpu.features import experimental as E
+from visfd_jax.features import experimental as E
 
 
 def test_distance_to_points():
@@ -106,8 +106,8 @@ def test_dogg_xy_shapes_and_response():
 
 
 def test_cli_experimental_ops(tmp_path):
-    from visfd_tpu.cli.filter_mrc import run
-    from visfd_tpu.io import mrc
+    from visfd_jax.cli.filter_mrc import run
+    from visfd_jax.io import mrc
 
     rng = np.random.default_rng(1)
     img = rng.normal(size=(12, 12, 12)).astype(np.float32)

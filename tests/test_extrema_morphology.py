@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from visfd_tpu.segment.extrema import find_extrema, flat_to_xyz, neighbor_offsets
-from visfd_tpu.ops import morphology as M
+from visfd_jax.segment.extrema import find_extrema, flat_to_xyz, neighbor_offsets
+from visfd_jax.ops import morphology as M
 
 
 def brute_extrema(x, connectivity=3, mask=None, allow_borders=True):
@@ -181,7 +181,7 @@ def test_extrema_hybrid_plateau_path_matches_full(rng, connectivity):
     must take the compaction + host-union-find branch (n_same small)
     and agree exactly with the full-volume label-propagation path and
     the brute BFS."""
-    from visfd_tpu.segment import extrema as E
+    from visfd_jax.segment import extrema as E
     x = rng.normal(size=(16, 16, 16)).astype(np.float32)
     # inject small plateaus: an L-shaped triple (local max), a pair,
     # and a flat pair that is NOT an extremum
@@ -221,11 +221,11 @@ def test_extrema_hybrid_plateau_path_matches_full(rng, connectivity):
 def test_extrema_thresholded_zero_plateau_fast_path(rng):
     """Regression (round 5): a -tv-best-thresholded saliency field is
     ~95% EXACT ZEROS -- one volume-sized plateau that forced the
-    full-volume label propagation (and crashed the TPU worker at
+    full-volume label propagation (and crashed the device worker at
     384^3).  With a maxima threshold above zero the zero plateau is
     irrelevant (no member can pass), so the fast path must engage and
     agree with the full-volume path."""
-    from visfd_tpu.segment import extrema as E
+    from visfd_jax.segment import extrema as E
     x = np.abs(rng.normal(size=(12, 12, 12))).astype(np.float32)
     thr = float(np.quantile(x, 0.9))
     x[x < thr] = 0.0   # 90% exact zeros

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from visfd_tpu.ops import filter2d as F2
-from visfd_tpu.ops import kernels as K
-from visfd_tpu.ops.conv import dense_conv3d
+from visfd_jax.ops import filter2d as F2
+from visfd_jax.ops import kernels as K
+from visfd_jax.ops.conv import dense_conv3d
 
 
 def brute_conv2d(x, k, mask=None, normalize=False):

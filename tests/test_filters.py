@@ -10,11 +10,11 @@ from scipy.special import ive
 
 import jax.numpy as jnp
 
-from visfd_tpu.ops import kernels as K
-from visfd_tpu.ops.conv import conv1d_axis, dense_conv3d, separable_conv3d
-from visfd_tpu.ops import filters as F
-from visfd_tpu.ops import threshold as T
-from visfd_tpu.ops import resample as R
+from visfd_jax.ops import kernels as K
+from visfd_jax.ops.conv import conv1d_axis, dense_conv3d, separable_conv3d
+from visfd_jax.ops import filters as F
+from visfd_jax.ops import threshold as T
+from visfd_jax.ops import resample as R
 
 
 def brute_conv1d(f, h):

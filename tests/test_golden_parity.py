@@ -26,8 +26,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from visfd_tpu.cli import filter_mrc as FM
-from visfd_tpu.io import read_mrc
+from visfd_jax.cli import filter_mrc as FM
+from visfd_jax.io import read_mrc
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 FIX = pathlib.Path("/root/reference/tests/test_blob_detect.rec")
@@ -281,7 +281,7 @@ def test_membrane_connect_flagship_mesh_golden(tmp_path):
 
 
 def test_membrane_sharded_checkpoint_golden(tmp_path):
-    """The orbax sharded phase checkpoint (-save/-load-progress-sharded
+    """The numpy phase checkpoint (-save/-load-progress-sharded
     extensions) resumes the flagship pipeline to the same bit-exact
     cluster labels as the .rec-based -save/-load-progress path."""
     out = tmp_path / "memb.mrc"
@@ -334,13 +334,13 @@ def test_mustlink_golden(tmp_path):
 
 
 def test_subprocess_entry_point():
-    """The ``python -m visfd_tpu.cli.filter_mrc`` __main__ block and
+    """The ``python -m visfd_jax.cli.filter_mrc`` __main__ block and
     main()'s exception->exit-code handling (cheap bad-flag case; the
     heavy pipelines run in-process above)."""
     import subprocess
     import sys
     proc = subprocess.run(
-        [sys.executable, "-m", "visfd_tpu.cli.filter_mrc",
+        [sys.executable, "-m", "visfd_jax.cli.filter_mrc",
          "-no-such-flag"],
         capture_output=True, text=True,
         env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"})

@@ -5,8 +5,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visfd_tpu.features import hessian as H
-from visfd_tpu.linalg import sym3
+from visfd_jax.features import hessian as H
+from visfd_jax.linalg import sym3
 
 
 def test_gradient_hessian_on_quadratic():

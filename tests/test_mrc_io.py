@@ -6,7 +6,7 @@ import io
 import numpy as np
 import pytest
 
-from visfd_tpu.io import mrc
+from visfd_jax.io import mrc
 
 
 def test_read_reference_fixtures(reference_fixture_dir):

@@ -1,8 +1,8 @@
 """Native C++ runtime vs pure-Python fallback parity.
 
-The flood algorithms in ``visfd_tpu/native/visfd_native.cpp`` must be
+The flood algorithms in ``visfd_jax/native/visfd_native.cpp`` must be
 bit-identical to the Python implementations in
-``visfd_tpu.segment.{watershed,connect}`` (same heap ordering, same
+``visfd_jax.segment.{watershed,connect}`` (same heap ordering, same
 tie-breaks, same label states).
 """
 
@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from visfd_tpu import native
+from visfd_jax import native
 
 
 @contextlib.contextmanager
@@ -40,7 +40,7 @@ def test_native_library_loads():
 @pytest.mark.parametrize("connectivity", [1, 3])
 @pytest.mark.parametrize("minima", [True, False])
 def test_watershed_parity(connectivity, minima):
-    from visfd_tpu.segment import watershed as W
+    from visfd_jax.segment import watershed as W
     rng = np.random.default_rng(7)
     x = rng.normal(size=(14, 15, 16)).astype(np.float32)
     mask = rng.random((14, 15, 16)) > 0.15
@@ -55,7 +55,7 @@ def test_watershed_parity(connectivity, minima):
 
 
 def test_watershed_parity_halt_and_plateaus():
-    from visfd_tpu.segment import watershed as W
+    from visfd_jax.segment import watershed as W
     rng = np.random.default_rng(3)
     # quantized values create plateaus and heap ties
     x = np.round(rng.normal(size=(12, 12, 12)) * 3).astype(np.float32)
@@ -80,7 +80,7 @@ def _connect_inputs(seed=11, shape=(12, 13, 14)):
 
 @pytest.mark.parametrize("with_tensor", [False, True])
 def test_connect_parity(with_tensor):
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal, vec, tens, mask = _connect_inputs()
     kw = dict(
         mask=mask,
@@ -131,7 +131,7 @@ def test_connect_compact_parity(use_native, with_tensor):
     """compact=True (device candidate compaction + compact flood) vs
     the dense path: identical labels/clusters/polarity; standardized
     vectors identical at every assigned voxel."""
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal, vec, tens, mask = _connect_inputs(seed=31)
     kw = dict(
         mask=mask,
@@ -159,7 +159,7 @@ def test_connect_tensor_without_vector(use_native, compact):
     """tensor= given but vector=None used to segfault the compact
     native flood (NULL vector deref) and crash the fallbacks; now the
     vector gate is simply skipped, identically on every path."""
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal, _vec, tens, mask = _connect_inputs(seed=47)
     kw = dict(
         mask=mask,
@@ -181,7 +181,7 @@ def test_connect_tensor_without_vector(use_native, compact):
 
 
 def test_connect_compact_parity_must_link():
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal, vec, tens, mask = _connect_inputs(seed=23)
     kw = dict(
         threshold_saliency=0.35,
@@ -199,7 +199,7 @@ def test_connect_compact_parity_must_link():
 
 
 def test_connect_compact_no_candidates():
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal = np.full((6, 6, 6), 0.5, np.float32)
     r = C.label_connected(sal, threshold_saliency=2.0, compact=True)
     assert r.num_clusters == 0
@@ -207,7 +207,7 @@ def test_connect_compact_no_candidates():
 
 
 def _random_blobs(n, seed=0, extent=200.0):
-    from visfd_tpu.features.blob import BlobList
+    from visfd_jax.features.blob import BlobList
     rng = np.random.default_rng(seed)
     crds = rng.random((n, 3)) * extent
     diam = rng.random(n) * 10.0 + 2.0
@@ -223,7 +223,7 @@ def _random_blobs(n, seed=0, extent=200.0):
          max_volume_overlap_small=0.1),
 ])
 def test_nms_parity(kw):
-    from visfd_tpu.features import blob as B
+    from visfd_jax.features import blob as B
     blobs = _random_blobs(600, seed=4)
     with forced_native(True):
         r_nat = B.discard_overlapping_blobs(blobs, **kw)
@@ -237,7 +237,7 @@ def test_nms_parity(kw):
 
 def test_nms_native_100k_under_1s():
     import time
-    from visfd_tpu.features import blob as B
+    from visfd_jax.features import blob as B
     blobs = _random_blobs(100_000, seed=9, extent=1000.0)
     with forced_native(True):
         assert native.load() is not None
@@ -255,7 +255,7 @@ def test_nms_native_100k_under_1s():
 
 
 def test_connect_parity_must_link():
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     sal, vec, tens, mask = _connect_inputs(seed=23)
     groups = [[(2.0, 2.0, 2.0), (10.0, 10.0, 10.0)]]
     kw = dict(

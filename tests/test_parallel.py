@@ -1,18 +1,20 @@
 """Sharded-vs-single-chip parity on a forced 8-device CPU mesh."""
 
+import pathlib
+
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from visfd_tpu.parallel.mesh import make_mesh, grid_sharding
-from visfd_tpu.parallel import sharded as SH
-from visfd_tpu.ops import kernels as K
-from visfd_tpu.ops.filters import apply_gauss
-from visfd_tpu.features import hessian as FH
-from visfd_tpu.features import tv as TV
-from visfd_tpu.linalg import sym3
+from visfd_jax.parallel.mesh import make_mesh, grid_sharding
+from visfd_jax.parallel import sharded as SH
+from visfd_jax.ops import kernels as K
+from visfd_jax.ops.filters import apply_gauss
+from visfd_jax.features import hessian as FH
+from visfd_jax.features import tv as TV
+from visfd_jax.linalg import sym3
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
@@ -52,11 +54,8 @@ def test_sharded_gauss_matches_single(mesh8, rng):
 
 def test_sharded_membrane_step_sparse_matches_dense(mesh8):
     """make_membrane_step(tv_sparse=True) (the -tv-best lever composed
-    with the mesh through the LIBRARY step, round-4 weak #6) must match
-    the dense kernel to FMA-contraction ulps (the sparse kernel spills
-    accumulators to the blocked output per z-offset group, so the
-    compiler contracts the adds differently; same tolerance class as
-    tests/test_tv_pallas.py's sparse parity)."""
+    with the mesh through the LIBRARY step) must match the dense
+    kernel: a skipped tap group contributes only zeros."""
     nz = ny = nx = 16
     img = np.zeros((nz, ny, nx), np.float32)
     img[:, :, 7:9] = 1.0
@@ -64,9 +63,9 @@ def test_sharded_membrane_step_sparse_matches_dense(mesh8):
     kw = dict(sigma=1.5, tv_sigma=1.5, tv_exponent=4,
               saliency_threshold=1e-4)   # zero out most sources
     step_d, sharding = SH.make_membrane_step(
-        mesh8, tv_use_pallas=True, tv_sparse=False, **kw)
+        mesh8, interpret=True, tv_sparse=False, **kw)
     step_s, _ = SH.make_membrane_step(
-        mesh8, tv_use_pallas=True, tv_sparse=True, **kw)
+        mesh8, interpret=True, tv_sparse=True, **kw)
     xs = jax.device_put(jnp.asarray(img), sharding)
     stick_d, vote_d = step_d(xs)
     stick_s, vote_s = step_s(xs)
@@ -119,6 +118,15 @@ def test_sharded_membrane_step_matches_single(mesh8):
                                rtol=1e-4, atol=1e-4)
 
 
+def tv_dense_stick_pallas(sal, v, sigma, exponent=4, mask_src=None,
+                          truncate_ratio=2.5, want_denominator=False,
+                          interpret=True):
+    """Single-device raw kernel accumulation (dest, den|None)."""
+    return TV.tv_accumulate_triton(
+        sal, v, mask_src, float(sigma), float(truncate_ratio),
+        int(exponent), False, bool(want_denominator), interpret=interpret)
+
+
 def _tv_fields(rng, n):
     sal = rng.uniform(0, 1, size=(n, n, n)).astype(np.float32)
     sal[sal < 0.4] = 0.0
@@ -132,8 +140,7 @@ def test_sharded_tv_pallas_bitwise_matches_single(mesh8, rng):
     kernel) must be BIT-identical to the single-device Pallas kernel:
     per voxel the tap loop runs in the same order with the same
     operands, halo rows supplying exactly the values the single-device
-    interior sees (single z-offset chunk at this window size)."""
-    from visfd_tpu.ops.tv_pallas import tv_dense_stick_pallas
+    interior sees."""
     n, sigma = 32, 1.5
     sal, v = _tv_fields(rng, n)
     want, _ = tv_dense_stick_pallas(
@@ -143,7 +150,7 @@ def test_sharded_tv_pallas_bitwise_matches_single(mesh8, rng):
     vs = jax.device_put(
         jnp.asarray(v),
         jax.sharding.NamedSharding(mesh8, P(*mesh8.axis_names, None)))
-    got, den = SH.tv_accumulate_sharded_pallas(
+    got, den = SH.tv_accumulate_sharded(
         xs, vs, None, sigma, 4, False, float(np.sqrt(2.0)), False,
         mesh8, interpret=True)
     assert den is None
@@ -152,7 +159,6 @@ def test_sharded_tv_pallas_bitwise_matches_single(mesh8, rng):
 
 def test_sharded_tv_pallas_masked_denominator(mesh8, rng):
     """Masked voting + denominator through the sharded kernel =="""
-    from visfd_tpu.ops.tv_pallas import tv_dense_stick_pallas
     n, sigma = 16, 1.5
     sal, v = _tv_fields(rng, n)
     mask = (rng.uniform(size=(n, n, n)) > 0.25).astype(np.float32)
@@ -161,7 +167,7 @@ def test_sharded_tv_pallas_masked_denominator(mesh8, rng):
         mask_src=jnp.asarray(mask), want_denominator=True,
         truncate_ratio=float(np.sqrt(2.0)), interpret=True)
     gs = grid_sharding(mesh8)
-    got, got_den = SH.tv_accumulate_sharded_pallas(
+    got, got_den = SH.tv_accumulate_sharded(
         jax.device_put(jnp.asarray(sal), gs),
         jax.device_put(
             jnp.asarray(v),
@@ -176,11 +182,10 @@ def test_sharded_tv_pallas_masked_denominator(mesh8, rng):
 
 def test_tv_dense_stick_multidevice_dispatches_to_sharded_pallas(
         mesh8, rng):
-    """tv_dense_stick on a mesh-sharded input with use_pallas=True
-    must route through the shard_map Pallas path (not silently fall
-    back to the XLA loop) and match the single-device Pallas result
-    bitwise."""
-    from visfd_tpu.ops.tv_pallas import tv_dense_stick_pallas
+    """tv_dense_stick on a mesh-sharded input, with the kernel chosen
+    (here by interpret=True), must route through the per-shard kernel
+    under shard_map (recorded as "triton-sharded") and match the
+    single-device kernel bitwise."""
     n, sigma = 32, 1.5
     sal, v = _tv_fields(rng, n)
     want, _ = tv_dense_stick_pallas(
@@ -190,26 +195,29 @@ def test_tv_dense_stick_multidevice_dispatches_to_sharded_pallas(
     vs = jax.device_put(
         jnp.asarray(v),
         jax.sharding.NamedSharding(mesh8, P(*mesh8.axis_names, None)))
+    from visfd_jax.utils import reset_paths, stage_paths
+    reset_paths()
     got = TV.tv_dense_stick(
         xs, vs, sigma, exponent=4, truncate_ratio=float(np.sqrt(2.0)),
-        normalize=False, use_pallas=True)
+        normalize=False, interpret=True)
+    assert stage_paths()["tv"] == "triton-sharded"
     # still sharded over the mesh (no gather happened)
     assert len(got.sharding.device_set) == 8
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_sharded_membrane_step_pallas_matches_xla(mesh8):
-    """make_membrane_step(tv_use_pallas=True) must agree with the XLA
-    accumulation to roundoff (sum order differs across formulations)."""
+    """make_membrane_step with the per-shard kernel (interpret=True)
+    must agree with the XLA accumulation to roundoff (sum order
+    differs across formulations)."""
     nz = ny = nx = 16
     img = np.zeros((nz, ny, nx), np.float32)
     img[:, :, 7:9] = 1.0
     img += 0.01 * np.arange(nx)[None, None, :]
     kw = dict(sigma=1.5, tv_sigma=1.5, tv_exponent=4,
               saliency_threshold=0.0)
-    step_x, sharding = SH.make_membrane_step(
-        mesh8, tv_use_pallas=False, **kw)
-    step_p, _ = SH.make_membrane_step(mesh8, tv_use_pallas=True, **kw)
+    step_x, sharding = SH.make_membrane_step(mesh8, **kw)
+    step_p, _ = SH.make_membrane_step(mesh8, interpret=True, **kw)
     xs = jax.device_put(jnp.asarray(img), sharding)
     stick_x, vote_x = step_x(xs)
     stick_p, vote_p = step_p(xs)
@@ -225,10 +233,10 @@ def test_sharded_membrane_step_pallas_matches_xla(mesh8):
 def test_init_distributed_single_process_noop(monkeypatch):
     """Without a coordinator/env, init_distributed must stay a
     single-process no-op (not hang waiting for a cluster)."""
-    from visfd_tpu.parallel import distributed as D
+    from visfd_jax.parallel import distributed as D
     for k in ("VISFD_COORDINATOR", "VISFD_NUM_PROCESSES",
-              "VISFD_PROCESS_ID", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE",
-              "TPU_WORKER_HOSTNAMES", "TPU_SKIP_MDS_QUERY"):
+              "VISFD_PROCESS_ID", "SLURM_JOB_ID",
+              "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
     assert D.init_distributed() is False
 
@@ -246,14 +254,14 @@ def test_init_distributed_one_process_cluster():
         "os.environ['VISFD_COORDINATOR'] = '127.0.0.1:18476'\n"
         "os.environ['VISFD_NUM_PROCESSES'] = '1'\n"
         "os.environ['VISFD_PROCESS_ID'] = '0'\n"
-        "from visfd_tpu.parallel.distributed import (init_distributed,"
+        "from visfd_jax.parallel.distributed import (init_distributed,"
         " shutdown_distributed)\n"
         "assert init_distributed() is True\n"
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "assert jax.process_count() == 1\n"
         "assert len(jax.devices()) >= 1\n"
-        "from visfd_tpu.parallel.mesh import make_mesh\n"
+        "from visfd_jax.parallel.mesh import make_mesh\n"
         "m = make_mesh()\n"
         "assert m.devices.size == len(jax.devices())\n"
         "shutdown_distributed()\n"
@@ -265,107 +273,73 @@ def test_init_distributed_one_process_cluster():
     assert "distributed-ok" in r.stdout, r.stderr[-2000:]
 
 
-def test_sharded_fused_eigen_matches_single(mesh8, rng):
-    """Per-shard fused Hessian+eigen kernel (halo exchange + local
-    block + global-face clamp) vs the single-device fused kernel.
-    Tolerance-based: interpret mode on CPU places voxels in different
-    SIMD lanes per block shape and the vectorized transcendentals
-    differ by ~1 ulp by lane (on real TPU the vector intrinsics are
-    lane-uniform)."""
-    from visfd_tpu.ops.eigen_pallas import hessian_principal_pallas
+def test_sharded_ridge_score_direction_matches_single(mesh8, rng):
+    """The CLI's -membrane front end (blur -> FD Hessian -> principal
+    eigensolve -> score, one jit) on a (z, y)-sharded volume under
+    GSPMD equals the single-device result."""
     x = rng.normal(size=(16, 24, 33)).astype(np.float32)
-    ref_s, ref_v = hessian_principal_pallas(
-        jnp.asarray(x), 2.0, want_v=True, interpret=True)
+    args = (None, 2.0, 2.5, sym3.EigenOrder.DECREASING, "planar")
+    ref_s, ref_v = FH.ridge_score_direction(jnp.asarray(x), *args)
     xs = jax.device_put(jnp.asarray(x), grid_sharding(mesh8))
-    got_s, got_v = SH.hessian_principal_sharded(
-        xs, mesh8, 2.0, want_v=True, interpret=True)
-    a, b = np.asarray(got_s), np.asarray(ref_s)
-    np.testing.assert_allclose(a, b, rtol=2e-5,
+    got_s, got_v = FH.ridge_score_direction(xs, *args)
+    assert len(got_s.sharding.device_set) == 8
+    b = np.asarray(ref_s)
+    np.testing.assert_allclose(np.asarray(got_s), b, rtol=2e-5,
                                atol=np.abs(b).max() * 1e-6)
-    # direction: sign-invariant agreement where the score is healthy
-    va = np.moveaxis(np.asarray(got_v), 0, -1)
-    vb = np.moveaxis(np.asarray(ref_v), 0, -1)
     well = b > np.abs(b).max() * 1e-3
-    dot = np.abs((va * vb).sum(-1))
+    dot = np.abs((np.asarray(got_v) * np.asarray(ref_v)).sum(-1))
     assert dot[well].min() > 1 - 1e-4
 
 
-def test_sharded_tv_channel_major_matches(mesh8, rng):
-    """Channel-major direction in + channel-major vote out through the
-    sharded TV wrapper == the channel-last path, bitwise."""
-    n, sigma = 24, 1.5
-    sal, v = _tv_fields(rng, n)
-    xs = jax.device_put(jnp.asarray(sal), grid_sharding(mesh8))
-    vs = jax.device_put(
-        jnp.asarray(v),
-        jax.sharding.NamedSharding(mesh8, P(*mesh8.axis_names, None)))
-    want, _ = SH.tv_accumulate_sharded_pallas(
-        xs, vs, None, sigma, 4, False, float(np.sqrt(2.0)), False,
-        mesh8, interpret=True)
-    v_cm = jax.device_put(
-        jnp.moveaxis(jnp.asarray(v), -1, 0),
-        jax.sharding.NamedSharding(mesh8, P(None, *mesh8.axis_names)))
-    got_cm, _ = SH.tv_accumulate_sharded_pallas(
-        xs, v_cm, None, sigma, 4, False, float(np.sqrt(2.0)), False,
-        mesh8, interpret=True, channel_major=True)
-    np.testing.assert_array_equal(
-        np.moveaxis(np.asarray(got_cm), 0, -1), np.asarray(want))
-
-
-def test_sharded_sym3_score_matches_single(mesh8, rng):
-    from visfd_tpu.ops.eigen_pallas import sym3_score_pallas
-    t6 = rng.normal(size=(6, 16, 16, 16)).astype(np.float32)
-    ref, _ = sym3_score_pallas(jnp.asarray(t6), decreasing=True,
-                               formula="stick", interpret=True)
+def test_sharded_tensor_score_direction_matches_single(mesh8, rng):
+    """Vote-tensor saliency + principal eigenvector of a sharded field
+    (purely voxelwise) equals the single-device result."""
+    t6 = rng.normal(size=(16, 16, 16, 6)).astype(np.float32)
+    ref, ref_v = FH.tensor_score_direction(
+        jnp.asarray(t6), sym3.EigenOrder.DECREASING, False)
     t6s = jax.device_put(
         jnp.asarray(t6),
-        jax.sharding.NamedSharding(mesh8, P(None, *mesh8.axis_names)))
-    got, _ = SH.sym3_score_sharded(t6s, mesh8, decreasing=True,
-                                   formula="stick", interpret=True)
+        jax.sharding.NamedSharding(mesh8, P(*mesh8.axis_names, None)))
+    got, got_v = FH.tensor_score_direction(
+        t6s, sym3.EigenOrder.DECREASING, False)
     b = np.asarray(ref)
     np.testing.assert_allclose(np.asarray(got), b, rtol=2e-5,
                                atol=np.abs(b).max() * 1e-6)
+    dot = np.abs((np.asarray(got_v) * np.asarray(ref_v)).sum(-1))
+    assert np.median(dot) > 1 - 1e-5
 
 
 def test_two_process_cli_flagship_golden(tmp_path):
-    """The round-4 verdict's top ask: the ADVERTISED multi-host CLI
-    flagship (README's 2-host example) must actually run end-to-end in
-    a genuine 2-process jax.distributed cluster -- every terminal host
-    materialization in handle_tv / label_connected now gathers with
-    process_allgather instead of np.asarray-ing a non-fully-addressable
-    global array.  Both processes run the full
-    ``-membrane -tv -connect -mesh -1`` pipeline over the global
-    8-device (4 per process) mesh; process 0 writes the tomogram, and
-    it must be BIT-identical to the single-process ``-mesh 8`` run
-    (the per-shard kernels are bit-identical and the mesh shape is the
-    same (4, 2) either way)."""
-    import shutil
+    """The multi-host CLI flagship (README's 2-host example) runs
+    end-to-end in a genuine 2-process jax.distributed cluster -- every
+    terminal host materialization in handle_tv / label_connected
+    gathers with process_allgather instead of np.asarray-ing a
+    non-fully-addressable global array.  Both processes run the full
+    ``-membrane -tv -connect -mesh -1`` pipeline on a seeded membrane
+    phantom over the global 8-device (4 per process) mesh; process 0
+    writes the tomogram, and it must be BIT-identical to the
+    single-process ``-mesh 8`` run (the mesh shape is the same (4, 2)
+    either way)."""
     import subprocess
     import sys
 
-    fixture = ("/root/reference/tests/test_image_membrane.rec")
-    shutil.copy(fixture, tmp_path / "in.rec")
-    cli_args = ["-w", "19.2", "-in", str(tmp_path / "in.rec"),
-                "-membrane", "minima", "55", "-tv", "4",
-                "-tv-angle-exponent", "4", "-bin", "2",
-                "-connect", "1e+09", "-connect-angle", "30"]
+    from visfd_jax.io import mrc as M
+    from visfd_jax.utils.phantom import membrane_phantom
+    M.write_mrc(str(tmp_path / "in.rec"),
+                np.asarray(membrane_phantom((32, 64, 48), seed=3)))
+    flags = ["-w", "19.2", "-membrane", "minima", "55", "-tv", "1.5",
+             "-tv-angle-exponent", "4",
+             "-connect", "3e-4", "-connect-angle", "30"]
+    cli_args = ["-in", str(tmp_path / "in.rec")] + flags
 
     # single-process golden over the same (4, 2) mesh (conftest forces
-    # 8 CPU devices in this process), fused interpret path
-    import os
-    from visfd_tpu.cli import filter_mrc as FM
-    old_env = os.environ.get("VISFD_FUSED_EIGEN")
-    os.environ["VISFD_FUSED_EIGEN"] = "1"
-    try:
-        rc = FM.run(cli_args + ["-out", str(tmp_path / "golden.rec"),
-                                "-mesh", "8"])
-    finally:
-        if old_env is None:
-            os.environ.pop("VISFD_FUSED_EIGEN", None)
-        else:
-            os.environ["VISFD_FUSED_EIGEN"] = old_env
+    # 8 CPU devices in this process)
+    from visfd_jax.cli import filter_mrc as FM
+    rc = FM.run(cli_args + ["-out", str(tmp_path / "golden.rec"),
+                            "-mesh", "8"])
     assert rc == 0
 
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
     worker = tmp_path / "cli_worker.py"
     worker.write_text(
         "import os, sys\n"
@@ -376,17 +350,12 @@ def test_two_process_cli_flagship_golden(tmp_path):
         "os.environ['VISFD_COORDINATOR'] = '127.0.0.1:18765'\n"
         "os.environ['VISFD_NUM_PROCESSES'] = '2'\n"
         "os.environ['VISFD_PROCESS_ID'] = str(pid)\n"
-        "os.environ['VISFD_FUSED_EIGEN'] = '1'\n"
-        "sys.path.insert(0, '/root/repo')\n"
+        f"sys.path.insert(0, {repo!r})\n"
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
-        "from visfd_tpu.cli import filter_mrc as FM\n"
-        "rc = FM.run(['-w', '19.2', '-in', tmp + '/in.rec',\n"
-        "             '-out', tmp + '/mp.rec',\n"
-        "             '-membrane', 'minima', '55', '-tv', '4',\n"
-        "             '-tv-angle-exponent', '4', '-bin', '2',\n"
-        "             '-mesh', '-1',\n"
-        "             '-connect', '1e+09', '-connect-angle', '30'])\n"
+        "from visfd_jax.cli import filter_mrc as FM\n"
+        "rc = FM.run(['-in', tmp + '/in.rec', '-out', tmp + '/mp.rec',\n"
+        f"             '-mesh', '-1'] + {flags!r})\n"
         "assert rc == 0\n"
         "import jax as j\n"
         "assert j.process_count() == 2\n"
@@ -395,7 +364,7 @@ def test_two_process_cli_flagship_golden(tmp_path):
     procs = [subprocess.Popen(
         [sys.executable, str(worker), str(i), str(tmp_path)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd="/root/repo") for i in range(2)]
+        cwd=repo) for i in range(2)]
     outs, errs = [], []
     for i, pr in enumerate(procs):
         out, err = pr.communicate(timeout=600)
@@ -403,16 +372,16 @@ def test_two_process_cli_flagship_golden(tmp_path):
         outs.append(out)
         errs.append(err)
     assert "proc0-cli-ok" in outs[0] and "proc1-cli-ok" in outs[1]
-    # fast paths ran everywhere; no silent XLA fallback
+    # the paths the CPU runs: the jitted XLA front end and the XLA
+    # shift-sum under GSPMD (the kernel is chosen on a GPU only)
     for err in errs:
-        assert "falling back" not in err, err[-2000:]
-        assert "hessian_eigen=pallas-fused-sharded" in err, err[-2000:]
-        assert "tv=pallas-sharded" in err, err[-2000:]
+        assert "fallback" not in err, err[-2000:]
+        assert "hessian_eigen=xla" in err, err[-2000:]
+        assert "tv=xla" in err and "tv=xla-sparse" not in err, err[-2000:]
     # process 0 wrote, process 1 skipped
     assert "writing tomogram" in errs[0]
     assert "skipping tomogram write" in errs[1]
 
-    from visfd_tpu.io import mrc as M
     got = M.read_mrc(str(tmp_path / "mp.rec")).data
     want = M.read_mrc(str(tmp_path / "golden.rec")).data
     np.testing.assert_array_equal(got, want)
@@ -439,7 +408,7 @@ def test_init_distributed_two_process_smoke(tmp_path):
         "os.environ['VISFD_NUM_PROCESSES'] = '2'\n"
         "os.environ['VISFD_PROCESS_ID'] = str(pid)\n"
         "sys.path.insert(0, '/root/repo')\n"
-        "from visfd_tpu.parallel.distributed import (init_distributed,"
+        "from visfd_jax.parallel.distributed import (init_distributed,"
         " shutdown_distributed)\n"
         "assert init_distributed() is True\n"
         "import jax\n"
@@ -448,8 +417,8 @@ def test_init_distributed_two_process_smoke(tmp_path):
         "import numpy as np\n"
         "assert jax.process_count() == 2\n"
         "assert len(jax.devices()) == 8\n"
-        "from visfd_tpu.parallel.mesh import make_mesh, grid_sharding\n"
-        "from visfd_tpu.parallel.reduce import (fraction_threshold,"
+        "from visfd_jax.parallel.mesh import make_mesh, grid_sharding\n"
+        "from visfd_jax.parallel.reduce import (fraction_threshold,"
         " global_min_max_mean)\n"
         "mesh = make_mesh()\n"
         "sh = grid_sharding(mesh)\n"

@@ -5,12 +5,12 @@ bit-exactly on a forced 8-device CPU mesh (SURVEY 4 last bullet)."""
 import numpy as np
 import pytest
 
-from visfd_tpu.io import read_mrc
-from visfd_tpu.features import blob as B
-from visfd_tpu.segment.extrema import find_extrema
-from visfd_tpu.parallel.mesh import make_mesh
-from visfd_tpu.parallel import reduce as R
-from visfd_tpu.parallel.sharded_features import (
+from visfd_jax.io import read_mrc
+from visfd_jax.features import blob as B
+from visfd_jax.segment.extrema import find_extrema
+from visfd_jax.parallel.mesh import make_mesh
+from visfd_jax.parallel import reduce as R
+from visfd_jax.parallel.sharded_features import (
     sharded_blob_dog, find_extrema_sharded)
 
 FIX = "/root/reference/tests/test_blob_detect.rec"
@@ -111,8 +111,8 @@ def _wells(shape=(16, 17, 18), centers=((4, 5, 6), (12, 12, 13)),
 
 @pytest.mark.parametrize("n_devices", [1, 8])
 def test_sharded_watershed_identical(rng, n_devices):
-    from visfd_tpu.segment.propagate import propagate_watershed
-    from visfd_tpu.parallel.sharded_features import (
+    from visfd_jax.segment.propagate import propagate_watershed
+    from visfd_jax.parallel.sharded_features import (
         propagate_watershed_sharded)
     x = rng.normal(size=(12, 13, 14)).astype(np.float32)
     for ax in range(3):
@@ -130,8 +130,8 @@ def test_sharded_watershed_identical(rng, n_devices):
 
 
 def test_sharded_watershed_plateaus():
-    from visfd_tpu.segment.propagate import propagate_watershed
-    from visfd_tpu.parallel.sharded_features import (
+    from visfd_jax.segment.propagate import propagate_watershed
+    from visfd_jax.parallel.sharded_features import (
         propagate_watershed_sharded)
     x = np.round(_wells(depths=(2.0, 2.0)) * 4) / 4  # flat tops
     ref = propagate_watershed(x)
@@ -146,7 +146,7 @@ def test_sharded_connect_identical(n_devices):
     candidate compaction, compact host flood) vs the single-device
     dense path: identical labels/clusters; standardized vectors
     identical at every assigned voxel."""
-    from visfd_tpu.segment import connect as C
+    from visfd_jax.segment import connect as C
     rng = np.random.default_rng(17)
     shape = (16, 14, 15)
     sal = rng.random(shape).astype(np.float32)
@@ -188,8 +188,8 @@ def test_cli_watershed_device(tmp_path, img):
     plateaus, so only counts are compared here)."""
     import io
     import contextlib
-    from visfd_tpu.cli import filter_mrc as FM
-    from visfd_tpu.io import write_mrc, read_mrc
+    from visfd_jax.cli import filter_mrc as FM
+    from visfd_jax.io import write_mrc, read_mrc
     inp = tmp_path / "in.mrc"
     write_mrc(str(inp), img.astype(np.float32))
     outs = {}
@@ -238,8 +238,8 @@ def test_sharded_watershed_markers_identical(rng, n_devices):
     """Marker-seeded watershed: the minimax flood runs SHARDED (round
     4) and must stay bit-identical to the single-device path --
     labels, basin locations, scores."""
-    from visfd_tpu.segment.propagate import propagate_watershed
-    from visfd_tpu.parallel.sharded_features import (
+    from visfd_jax.segment.propagate import propagate_watershed
+    from visfd_jax.parallel.sharded_features import (
         propagate_watershed_sharded)
     x = rng.normal(size=(11, 14, 13)).astype(np.float32)
     for ax in range(3):
@@ -268,8 +268,8 @@ def test_sharded_watershed_markers_identical(rng, n_devices):
 def test_sharded_watershed_boundaries_identical(rng, markers):
     """show_boundaries: the boundary minimax flood runs sharded; the
     Meyer boundary labels must equal the single-device result."""
-    from visfd_tpu.segment.propagate import propagate_watershed
-    from visfd_tpu.parallel.sharded_features import (
+    from visfd_jax.segment.propagate import propagate_watershed
+    from visfd_jax.parallel.sharded_features import (
         propagate_watershed_sharded)
     x = rng.permutation(12 * 13 * 14).astype(np.float32).reshape(
         12, 13, 14)
@@ -285,3 +285,35 @@ def test_sharded_watershed_boundaries_identical(rng, markers):
                                       label_boundary=77)
     assert got.num_basins == ref.num_basins
     np.testing.assert_array_equal(got.labels, ref.labels)
+
+
+def test_per_shard_compaction_equals_global():
+    """-connect's candidate compaction per shard (each device compacts
+    its block; the host merges the lists into raster order) returns the
+    same lists as the single-device compaction."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from visfd_jax.segment import connect as C
+    rng = np.random.default_rng(5)
+    shape = (16, 14, 15)
+    sal = rng.random(shape).astype(np.float32)
+    cand = sal > 0.7
+    disc = rng.random(shape) > 0.5
+    tens = rng.normal(size=shape + (6,)).astype(np.float32)
+    vec = rng.normal(size=shape + (3,)).astype(np.float32)
+    mesh = make_mesh(8)
+
+    def put(a):
+        spec = P(*mesh.axis_names, *([None] * (a.ndim - 2)))
+        return jax.device_put(jnp.asarray(a), NamedSharding(mesh, spec))
+
+    got = C._compact_connect_per_shard(put(cand), put(sal), put(disc),
+                                       put(tens), put(vec))
+    n = int(cand.sum())
+    want = C._compact_connect(jnp.asarray(cand), jnp.asarray(sal),
+                              jnp.asarray(disc), jnp.asarray(tens),
+                              jnp.asarray(vec), 1 << 12, True, True)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w)[:n])

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from visfd_tpu.segment.propagate import propagate_watershed
-from visfd_tpu.segment.watershed import watershed
+from visfd_jax.segment.propagate import propagate_watershed
+from visfd_jax.segment.watershed import watershed
 
 
 def _wells(shape=(16, 17, 18), centers=((4, 5, 6), (12, 12, 13)),
@@ -127,8 +127,8 @@ def test_meyer_boundaries_sequential_reference():
     """The vectorized contested cascade reproduces the per-voxel
     sequential semantics exactly on a noise volume (large contested
     set with nontrivial dependency chains)."""
-    from visfd_tpu.segment import extrema as E
-    from visfd_tpu.segment.propagate import (meyer_boundaries,
+    from visfd_jax.segment import extrema as E
+    from visfd_jax.segment.propagate import (meyer_boundaries,
                                              propagate_watershed)
     rng = np.random.default_rng(5)
     x = rng.permutation(18 * 19 * 20).astype(np.float32).reshape(18, 19, 20)
@@ -138,7 +138,7 @@ def test_meyer_boundaries_sequential_reference():
 
     # rebuild the minimax flooding level exactly as the caller does
     import jax.numpy as jnp
-    from visfd_tpu.segment.propagate import _minimax_device
+    from visfd_jax.segment.propagate import _minimax_device
     seeds = np.zeros(labels.shape, np.int32)
     locs = np.asarray(res.basin_locations)
     seeds[locs[:, 2], locs[:, 1], locs[:, 0]] = np.arange(
@@ -191,8 +191,8 @@ def test_meyer_boundaries_noise_volume_fast():
     """>= 1e5 contested voxels resolve in about a second (the round-3
     per-voxel Python cascade was unbounded on noise volumes)."""
     import time
-    from visfd_tpu.segment import extrema as E
-    from visfd_tpu.segment.propagate import meyer_boundaries
+    from visfd_jax.segment import extrema as E
+    from visfd_jax.segment.propagate import meyer_boundaries
     rng = np.random.default_rng(9)
     shape = (48, 64, 64)
     # adversarial label map: dense random labels -> almost every voxel

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from visfd_tpu.cli import settings as S
-from visfd_tpu.cli.settings import InputError, parse_args
+from visfd_jax.cli import settings as S
+from visfd_jax.cli.settings import InputError, parse_args
 
 
 def test_soft_morphology_flags():

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from visfd_tpu.features import tv as TV
-from visfd_tpu.ops import kernels as K
-from visfd_tpu.linalg import sym3
+from visfd_jax.features import tv as TV
+from visfd_jax.ops import kernels as K
+from visfd_jax.linalg import sym3
 
 
 def brute_tv(saliency, nvec, sigma, exponent, mask_src=None, mask_dest=None,
@@ -158,3 +158,23 @@ def test_tv_membrane_sharpens_plane():
     # are expected, matching the reference's release-build output
     # (its own debug assert would trip, but compiles out with -DNDEBUG).
     assert eivals.min() > -0.1
+
+
+@pytest.mark.parametrize("platform,hw,want", [
+    ("gpu", 2, True), ("gpu", 5, True), ("gpu", 6, False),
+    ("cpu", 3, False)])
+def test_tv_path_platform_rule(platform, hw, want):
+    """The Triton kernel serves a GPU for windows it is built for; every
+    other platform and wider windows take the XLA shift-sum."""
+    assert TV.use_triton_tv(hw, platform) is want
+
+
+def test_tv_dense_stick_records_xla_path_on_cpu(rng):
+    """On the CPU the XLA shift-sum runs, and it is recorded as plain
+    "xla" even when sparse voting was asked for: no gating ran."""
+    from visfd_jax.utils import reset_paths, stage_paths
+    sal = rng.uniform(size=(6, 7, 8)).astype(np.float32)
+    v = rng.normal(size=(6, 7, 8, 3)).astype(np.float32)
+    reset_paths()
+    TV.tv_dense_stick(jnp.asarray(sal), jnp.asarray(v), 1.2, sparse=True)
+    assert stage_paths()["tv"] == "xla"

@@ -5,9 +5,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from visfd_tpu.ops.filters import apply_gauss
-from visfd_tpu.segment.extrema import find_extrema
-from visfd_tpu.segment.watershed import watershed
+from visfd_jax.ops.filters import apply_gauss
+from visfd_jax.segment.extrema import find_extrema
+from visfd_jax.segment.watershed import watershed
 
 
 def blurred_noise(rng, n=14, sigma=2.0):
