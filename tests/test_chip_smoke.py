@@ -18,9 +18,11 @@ def test_kernel_phase_interpret_small():
 
 def test_main_path_phase_small(tmp_path):
     """Both CLI phases on a small phantom: outputs, recorded paths, and
-    the planted sheets as the largest clusters."""
+    the planted sheets as the largest clusters.  At ``-tv 1.5`` (vote
+    half-width 3): the XLA formulation the CPU runs takes minutes to
+    compile at the smoke's half-width 9."""
     sal, labels = chip_smoke.main_path_phase(
-        str(tmp_path), shape=(96, 256, 32), runs=1)
+        str(tmp_path), shape=(96, 256, 32), runs=1, tv=1.5)
     assert sal.shape == labels.shape == (96, 256, 32)
     assert np.isfinite(sal).all()
 
@@ -43,3 +45,13 @@ def test_main_refuses_without_gpu(monkeypatch):
     """No result is printed and the exit code is nonzero off the GPU."""
     monkeypatch.setattr(chip_smoke, "card_line", lambda: "no card")
     assert chip_smoke.main([]) != 0
+
+
+def test_mesh4_phase_on_cpu_stops_at_the_nccl_check(tmp_path):
+    """The four-device phase on four CPU devices, the kernel
+    interpreted, at ``-tv 1.5``: the -mesh 4 run matches the one-device
+    run (else an earlier assertion fires), and the check that the
+    collectives ran as NCCL kernels fails, as it must where none runs."""
+    with pytest.raises(AssertionError, match="NCCL"):
+        chip_smoke.mesh4_phase(str(tmp_path), shape=(96, 256, 32),
+                               interpret=True, tv=1.5)

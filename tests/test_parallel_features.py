@@ -287,10 +287,12 @@ def test_sharded_watershed_boundaries_identical(rng, markers):
     np.testing.assert_array_equal(got.labels, ref.labels)
 
 
-def test_per_shard_compaction_equals_global():
-    """-connect's candidate compaction per shard (each device compacts
-    its block; the host merges the lists into raster order) returns the
-    same lists as the single-device compaction."""
+@pytest.mark.parametrize("n_devices", [1, 2, 8])
+def test_per_shard_compaction_equals_global(n_devices):
+    """-connect's candidate compaction (each device compacts its block;
+    the host merges the lists into raster order) returns every candidate
+    in raster order with its own values, on one device and over (z)- and
+    (z, y)-split meshes alike."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -302,18 +304,20 @@ def test_per_shard_compaction_equals_global():
     disc = rng.random(shape) > 0.5
     tens = rng.normal(size=shape + (6,)).astype(np.float32)
     vec = rng.normal(size=shape + (3,)).astype(np.float32)
-    mesh = make_mesh(8)
+    mesh = make_mesh(n_devices)
 
     def put(a):
+        if n_devices == 1:
+            return jnp.asarray(a)
         spec = P(*mesh.axis_names, *([None] * (a.ndim - 2)))
         return jax.device_put(jnp.asarray(a), NamedSharding(mesh, spec))
 
-    got = C._compact_connect_per_shard(put(cand), put(sal), put(disc),
-                                       put(tens), put(vec))
-    n = int(cand.sum())
-    want = C._compact_connect(jnp.asarray(cand), jnp.asarray(sal),
-                              jnp.asarray(disc), jnp.asarray(tens),
-                              jnp.asarray(vec), 1 << 12, True, True)
-    assert len(got) == len(want) == 5
+    got = C._compact_connect(put(cand), put(sal), put(disc), put(tens),
+                             put(vec))
+    z, y, x = np.nonzero(cand)
+    want = [np.stack([z, y, x], axis=-1), sal[z, y, x],
+            disc[z, y, x].astype(np.uint8), tens[z, y, x], vec[z, y, x]]
+    assert len(got) == len(want)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, np.asarray(w)[:n])
+        assert g.dtype == w.dtype or g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)

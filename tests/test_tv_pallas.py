@@ -132,7 +132,7 @@ def test_pallas_curve_mode(rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hw", [2, 3, 5])
+@pytest.mark.parametrize("hw", [2, 3, 5, 9])
 @pytest.mark.parametrize("sparse", [False, True])
 def test_triton_kernel_on_gpu_matches_xla(gpu, rng, hw, sparse):
     """The kernel as compiled for the card (no interpreter) against the

@@ -41,10 +41,11 @@ def main(argv):
         mrc.write_mrc(src, np.asarray(membrane_phantom(shape)))
         argv = (["-in", src, "-out", os.path.join(work, "out.mrc")]
                 + chip_smoke.PHASE1.format(
-                    prog=os.path.join(work, "prog")).split())
+                    prog=os.path.join(work, "prog"),
+                    tv=chip_smoke.TV_SCALE).split())
         for path in ("triton", "xla", "xla", "triton"):
             TV.use_triton_tv = (kernel_rule if path == "triton"
-                                else lambda hw, platform=None: False)
+                                else lambda platform=None: False)
             try:
                 dt, paths, spans = chip_smoke._run_cli(argv)
             except (RuntimeError, jax.errors.JaxRuntimeError) as e:

@@ -153,8 +153,31 @@ def score_tensor_linear(eivals: jax.Array) -> jax.Array:
     return score_hessian_linear(eivals)
 
 
+def score_direction_from_derivatives(grad, hess, mask, order, score):
+    """The front end's tail: mask the scaled derivatives as
+    ``calc_hessian`` does, then the principal eigensolve and ``score``
+    (see ``ridge_score_direction``)."""
+    if mask is not None:
+        grad = grad * (mask[..., None] != 0)
+        hess = hess * (mask[..., None] != 0)
+    if score == "edge":
+        return jnp.linalg.norm(grad, axis=-1), grad
+    eivals, ev1 = sym3.principal_sym3(sym3.flat_to_full(hess), order=order)
+    if score == "linear":
+        return score_hessian_linear(eivals), ev1
+    return score_hessian_planar(eivals), ev1
+
+
 @functools.partial(jax.jit, static_argnames=("sigma", "truncate_ratio",
                                              "order", "score"))
+def _ridge_score_direction(x, mask, sigma, truncate_ratio, order, score):
+    hw = max(1, int(np.floor(sigma * truncate_ratio)))
+    blur = F.apply_gauss(x, sigma, mask=mask, truncate_halfwidth=(hw,) * 3)
+    return score_direction_from_derivatives(
+        gradient_fd(blur) * sigma, hessian_fd(blur) * (sigma * sigma),
+        mask, order, score)
+
+
 def ridge_score_direction(x, mask, sigma: float, truncate_ratio: float,
                           order: sym3.EigenOrder, score: str):
     """The ``-membrane``/``-curve``/``-edge`` front end as one jitted
@@ -162,16 +185,19 @@ def ridge_score_direction(x, mask, sigma: float, truncate_ratio: float,
     eigensolve -> score.  ``score`` is "planar" (surfaces), "linear"
     (curves) or "edge" (gradient magnitude).  Returns (score (Z, Y, X),
     direction (Z, Y, X, 3)): the principal Hessian eigenvector, or the
-    gradient for "edge"."""
-    grad, hess = calc_hessian(x, sigma, mask=mask,
-                              truncate_ratio=truncate_ratio,
-                              want_gradient=score == "edge")
-    if score == "edge":
-        return jnp.linalg.norm(grad, axis=-1), grad
-    eivals, ev1 = sym3.principal_sym3(sym3.flat_to_full(hess), order=order)
-    if score == "linear":
-        return score_hessian_linear(eivals), ev1
-    return score_hessian_planar(eivals), ev1
+    gradient for "edge".  A volume block-sharded over a (z, y) device
+    grid (``-mesh``) runs block by block with halo exchange
+    (``parallel.sharded.ridge_score_direction_sharded``), equal to the
+    single-device result."""
+    from visfd_jax.parallel.mesh import grid_mesh_of
+    mesh = grid_mesh_of(x)
+    if mesh is not None and mesh.devices.size > 1:
+        from visfd_jax.parallel.sharded import (
+            ridge_score_direction_sharded)
+        return ridge_score_direction_sharded(
+            x, mask, mesh, float(sigma), float(truncate_ratio), order, score)
+    return _ridge_score_direction(x, mask, float(sigma),
+                                  float(truncate_ratio), order, score)
 
 
 @functools.partial(jax.jit, static_argnames=("order", "linear"))

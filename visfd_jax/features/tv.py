@@ -43,40 +43,7 @@ import numpy as np
 from visfd_jax.ops import kernels as K
 from visfd_jax.ops.conv import _ones_denom_1d
 from visfd_jax.linalg import sym3
-
-
-def _grid_mesh_of(x):
-    """The concrete 2-axis (z, y) Mesh behind a NamedSharding that
-    block-shards exactly the first two axes of a (Z, Y, X[, C]) array
-    evenly -- the layout the CLI's ``-mesh`` / ``grid_sharding`` use.
-    Returns None for any other sharding (callers then run the
-    GSPMD-partitioned XLA path)."""
-    sh = getattr(x, "sharding", None)
-    mesh = getattr(sh, "mesh", None)
-    spec = getattr(sh, "spec", None)
-    if mesh is None or spec is None:
-        return None
-    try:
-        axes = tuple(mesh.axis_names)
-    except Exception:
-        return None
-    if len(axes) != 2:
-        return None
-
-    def norm(e):
-        if isinstance(e, tuple):
-            return e[0] if len(e) == 1 else e
-        return e
-
-    got = tuple(norm(e) for e in tuple(spec))
-    got = got + (None,) * (x.ndim - len(got))
-    if got[:2] != axes or any(g is not None for g in got[2:]):
-        return None
-    sizes = dict(zip(axes, mesh.devices.shape))
-    if (x.shape[0] % sizes[axes[0]] != 0
-            or x.shape[1] % sizes[axes[1]] != 0):
-        return None  # uneven blocks: shard_map cannot partition
-    return mesh
+from visfd_jax.parallel.mesh import grid_mesh_of
 
 
 def tv_tables(sigma: float, truncate_ratio: float = 2.5):
@@ -211,15 +178,13 @@ def _is_multidevice(x) -> bool:
     return sh is not None and len(sh.device_set) > 1
 
 
-def use_triton_tv(hw: int, platform: Optional[str] = None) -> bool:
-    """Which vote accumulation serves a window of half-width ``hw``:
-    the Triton kernel (``ops.tv_triton``) on a GPU for windows it is
-    built for, the XLA shift-sum everywhere else.  ``platform``
-    defaults to that of ``jax.devices()[0]``."""
-    from visfd_jax.ops.tv_triton import MAX_HW
+def use_triton_tv(platform: Optional[str] = None) -> bool:
+    """Which vote accumulation serves ``platform`` (default: that of
+    ``jax.devices()[0]``): the Triton kernel (``ops.tv_triton``) on a
+    GPU, the XLA shift-sum everywhere else."""
     if platform is None:
         platform = jax.devices()[0].platform
-    return platform == "gpu" and hw <= MAX_HW
+    return platform == "gpu"
 
 
 @functools.partial(
@@ -278,10 +243,10 @@ def tv_dense_stick(
     ms = None if mask_src is None else jnp.asarray(mask_src, jnp.float32)
     md = None if mask_dest is None else jnp.asarray(mask_dest, jnp.float32)
     want_den = bool(normalize and ms is not None)
-    kernel = interpret or use_triton_tv(hw)
+    kernel = interpret or use_triton_tv()
     grid_mesh = None
     if kernel and _is_multidevice(saliency):
-        grid_mesh = _grid_mesh_of(saliency)
+        grid_mesh = grid_mesh_of(saliency)
         kernel = grid_mesh is not None
     sparse = bool(sparse) and kernel
     if grid_mesh is not None:

@@ -37,10 +37,6 @@ BLOCK_Y = 16
 BLOCK_X = 64
 NUM_WARPS = 4
 
-# Largest vote half-width the kernel serves (hw=5 is 515 nonzero taps);
-# wider windows use the XLA path.
-MAX_HW = 5
-
 
 def _tap_tables(w_table, rhat_table, hw):
     """The nonzero-weight taps of the XLA path's (tz, ty, tx)-ordered

@@ -46,3 +46,37 @@ def grid_sharding(mesh: Mesh) -> NamedSharding:
 
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
+
+
+def grid_mesh_of(x):
+    """The concrete 2-axis (z, y) Mesh behind a NamedSharding that
+    block-shards exactly the first two axes of a (Z, Y, X[, C]) array
+    evenly -- the layout the CLI's ``-mesh`` / ``grid_sharding`` use.
+    Returns None for any other sharding (callers then run the
+    GSPMD-partitioned XLA path)."""
+    sh = getattr(x, "sharding", None)
+    mesh = getattr(sh, "mesh", None)
+    spec = getattr(sh, "spec", None)
+    if mesh is None or spec is None:
+        return None
+    try:
+        axes = tuple(mesh.axis_names)
+    except Exception:
+        return None
+    if len(axes) != 2:
+        return None
+
+    def norm(e):
+        if isinstance(e, tuple):
+            return e[0] if len(e) == 1 else e
+        return e
+
+    got = tuple(norm(e) for e in tuple(spec))
+    got = got + (None,) * (x.ndim - len(got))
+    if got[:2] != axes or any(g is not None for g in got[2:]):
+        return None
+    sizes = dict(zip(axes, mesh.devices.shape))
+    if (x.shape[0] % sizes[axes[0]] != 0
+            or x.shape[1] % sizes[axes[1]] != 0):
+        return None  # uneven blocks: shard_map cannot partition
+    return mesh

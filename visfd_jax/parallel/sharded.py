@@ -44,6 +44,16 @@ def _local_conv_sliced(xp: jax.Array, kernel, axis: int, halo: int):
     return out[tuple(sl)]
 
 
+def _sharded_sep3(v, kx, ky, kz, z_name="z", y_name="y"):
+    """Raw separable blur of a sharded block: the z, y and x passes of
+    ``ops.conv._sep3`` in its order, each sharded axis first extended by
+    its neighbours' rows."""
+    hz, hy = len(kz) // 2, len(ky) // 2
+    v = _local_conv_sliced(halo_pad(v, hz, 0, z_name), kz, 0, hz)
+    v = _local_conv_sliced(halo_pad(v, hy, 1, y_name), ky, 1, hy)
+    return _conv1d_axis_impl(v, kx, 2)
+
+
 def _sharded_gauss(x, kx, ky, kz, hw, z_name="z", y_name="y"):
     """Separable blur of a local block with halo exchange; the no-mask
     edge normalization (filter3d.hpp:1006-1040) divides by the same
@@ -54,14 +64,7 @@ def _sharded_gauss(x, kx, ky, kz, hw, z_name="z", y_name="y"):
     blur-of-ones formulation."""
     from visfd_jax.ops.conv import _ones_denom_1d
 
-    def blur(v):
-        vz = halo_pad(v, hw, 0, z_name)
-        vz = _local_conv_sliced(vz, kz, 0, hw)
-        vy = halo_pad(vz, hw, 1, y_name)
-        vy = _local_conv_sliced(vy, ky, 1, hw)
-        return _conv1d_axis_impl(vy, kx, 2)
-
-    num = blur(x)
+    num = _sharded_sep3(x, kx, ky, kz, z_name, y_name)
     bz, by_, nxl = x.shape
     dz_full = _ones_denom_1d(kz, bz * jax.lax.axis_size(z_name))
     dy_full = _ones_denom_1d(ky, by_ * jax.lax.axis_size(y_name))
@@ -128,6 +131,44 @@ def _local_gradient_hessian(blur_block, z_name="z", y_name="y"):
     grad = _sharded_stencil_edge_fix(grad, 1, y_name)
     hess = _sharded_stencil_edge_fix(hess, 1, y_name)
     return grad, hess
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "mesh", "sigma", "truncate_ratio", "order", "score"))
+def ridge_score_direction_sharded(x, mask, mesh: Mesh, sigma: float,
+                                  truncate_ratio: float,
+                                  order: sym3.EigenOrder, score: str):
+    """``features.hessian.ridge_score_direction`` of a volume
+    block-sharded over the (z, y) ``mesh``, block by block: the blur
+    and the FD stencils take their halo rows from the neighbours and run
+    the single-device arithmetic, so the result equals one device's bit
+    for bit.  (Partitioned by GSPMD instead, the blur rounds differently
+    in the last bit, and the FD Hessian's second differences amplify
+    that to ~1e-5 of the score.)"""
+    from visfd_jax.features import hessian as FH
+    z_name, y_name = mesh.axis_names
+    hw = max(1, int(np.floor(sigma * truncate_ratio)))
+    k1 = jnp.asarray(K.gauss_kernel_1d(sigma, hw), jnp.float32)
+
+    def local(xb, *mb):
+        if mb:
+            m = mb[0]
+            num = _sharded_sep3(xb * m, k1, k1, k1, z_name, y_name)
+            den = _sharded_sep3(m, k1, k1, k1, z_name, y_name)
+            blur = jnp.where(den > 0, num / jnp.where(den > 0, den, 1.0),
+                             num)
+        else:
+            blur = _sharded_gauss(xb, k1, k1, k1, hw, z_name, y_name)
+        grad, hess = _local_gradient_hessian(blur, z_name, y_name)
+        return FH.score_direction_from_derivatives(
+            grad * sigma, hess * (sigma * sigma), mb[0] if mb else None,
+            order, score)
+
+    spec = P(z_name, y_name)
+    args = (x,) if mask is None else (x, mask)
+    return shard_map(local, mesh=mesh, in_specs=(spec,) * len(args),
+                     out_specs=(spec, P(z_name, y_name, None)),
+                     check_vma=False)(*args)
 
 
 def _halo_pad_fields(sal, nvec, mask, hw, z_name, y_name):
@@ -243,7 +284,7 @@ def make_membrane_step(
     k1_np = K.gauss_kernel_1d(sigma, hw)
     w_np, rhat_np, off_np, tv_hw = TV.tv_tables(tv_sigma, tv_truncate_ratio)
     kernel_tables = None
-    if interpret or TV.use_triton_tv(tv_hw, platform):
+    if interpret or TV.use_triton_tv(platform):
         kernel_tables = (w_np, rhat_np)
 
     # tables enter as traced args (constant-embedding pessimizes XLA)

@@ -189,36 +189,22 @@ def _candidate_mask(sal, mvalid, t32, pred_gt):
     return cand, jnp.sum(cand, axis=(1, 2), dtype=jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "capacity", "has_tensor", "has_vector"))
-def _compact_connect(cand, sal, discard, tensor, vector, capacity,
-                     has_tensor, has_vector):
-    """Fixed-capacity candidate extraction: (z, y, x) index triples in
-    raster order plus gathered per-candidate saliency/discard/tensor/
-    vector.  Only these lists cross PCIe.  Per-axis int32 indices are
-    overflow-safe for >=2^31-voxel volumes (the host composes int64
-    flat indices)."""
-    z, y, x = jnp.nonzero(cand, size=capacity, fill_value=0)
-    out = [jnp.stack([z, y, x], axis=-1).astype(jnp.int32),
-           sal[z, y, x],
-           discard[z, y, x].astype(jnp.uint8)]
-    if has_tensor:
-        out.append(tensor[z, y, x])
-    if has_vector:
-        out.append(vector[z, y, x])
-    return tuple(out)
-
-
-def _compact_connect_per_shard(cand, sal, discard, tensor, vector):
-    """``_compact_connect`` for arrays block-sharded over a (z, y)
-    mesh: each device compacts its own block (a global ``nonzero`` and
-    gather under GSPMD took minutes where one device takes milliseconds),
-    the host drops each block's padding and merges the lists back into
-    global raster order.  Returns the same host lists, (zyx, sal,
-    discard[, tensor][, vector]), trimmed to the candidate count."""
+def _compact_connect(cand, sal, discard, tensor, vector):
+    """Candidate extraction, block by block: each device compacts its
+    own (z, y) block of a mesh-sharded volume (a global ``nonzero`` and
+    gather under GSPMD took minutes where one device takes
+    milliseconds); a volume on one device is the one block of a 1x1
+    mesh.  Only the lists cross to the host, which drops each block's
+    padding and merges them into global raster order.  Returns host
+    arrays (zyx int32 (n, 3), sal, discard uint8[, tensor][, vector])
+    of the n candidates."""
     from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-    mesh = sal.sharding.mesh
+    from jax.sharding import Mesh, PartitionSpec as P
+    devices = sal.sharding.device_set
+    if len(devices) == 1:
+        mesh = Mesh(np.array(list(devices)).reshape(1, 1), ("z", "y"))
+    else:
+        mesh = sal.sharding.mesh      # label_connected's (z, y) grid
     zn, yn = mesh.axis_names
     extra = [a for a in (tensor, vector) if a is not None]
 
@@ -227,7 +213,9 @@ def _compact_connect_per_shard(cand, sal, discard, tensor, vector):
 
     counts = to_host_np(jax.jit(shard_map(
         count, mesh=mesh, in_specs=P(zn, yn), out_specs=P(zn, yn)))(cand))
-    cap = 1 << max(6, int(np.ceil(np.log2(max(int(counts.max()), 1)))))
+    block = cand.size // counts.size
+    cap = min(1 << max(6, int(np.ceil(np.log2(max(int(counts.max()), 1))))),
+              block)
 
     def local(c, s, d, *ex):
         bz, by, _ = c.shape
@@ -251,6 +239,8 @@ def _compact_connect_per_shard(cand, sal, discard, tensor, vector):
             for j in range(counts.shape[1])]
     lists = [np.concatenate([o[i, j, :counts[i, j]] for i, j in keep])
              for o in outs]
+    if counts.shape[1] == 1:
+        return lists          # z-blocks in order: already raster order
     zyx = lists[0].astype(np.int64)
     order = np.lexsort((zyx[:, 2], zyx[:, 1], zyx[:, 0]))
     return [a[order] for a in lists]
@@ -523,29 +513,15 @@ def _flood_compact(sal_j, discard_j, mask, offs, sign, threshold_saliency,
 
     has_tensor = tensor_j is not None
     has_vector = vector_j is not None
-    dummy = jnp.zeros((1,), jnp.float32)
-    sharded = (len(sal_j.sharding.device_set) > 1
-               and len(getattr(getattr(sal_j.sharding, "mesh", None),
-                               "axis_names", ())) == 2)
-    if n_cand > 0 and sharded:
-        parts = iter(_compact_connect_per_shard(
-            cand_j, sal_j, discard_j, tensor_j, vector_j))
-    elif n_cand > 0:
-        cap = min(1 << max(6, int(np.ceil(np.log2(n_cand)))), n)
-        parts = iter(_compact_connect(
-            cand_j, sal_j, discard_j,
-            tensor_j if has_tensor else dummy,
-            vector_j if has_vector else dummy,
-            cap, has_tensor, has_vector))
     if n_cand > 0:
-        zyx = to_host_np(next(parts))[:n_cand].astype(np.int64)
+        parts = iter(_compact_connect(cand_j, sal_j, discard_j, tensor_j,
+                                      vector_j))
+        zyx = next(parts).astype(np.int64)
         idx = (zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2]
-        sal_c = np.ascontiguousarray(to_host_np(next(parts))[:n_cand])
-        disc_c = np.ascontiguousarray(to_host_np(next(parts))[:n_cand])
-        tens_c = (np.ascontiguousarray(to_host_np(next(parts))[:n_cand])
-                  if has_tensor else None)
-        vec_c = (np.ascontiguousarray(to_host_np(next(parts))[:n_cand])
-                 if has_vector else None)
+        sal_c = np.ascontiguousarray(next(parts))
+        disc_c = np.ascontiguousarray(next(parts))
+        tens_c = np.ascontiguousarray(next(parts)) if has_tensor else None
+        vec_c = np.ascontiguousarray(next(parts)) if has_vector else None
     else:
         idx = np.zeros(0, np.int64)
         sal_c = np.zeros(0, np.float32)
